@@ -12,9 +12,10 @@ Prints per-contig: anchored span, body errors, and the unanchored
 head/tail lengths (reported separately — coverage-taper territory).
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
@@ -82,7 +83,7 @@ def edit_dist(a, b):
 
 
 def contig_errors(ctg, truth):
-    from flye_tpu.io.fasta import reverse_complement
+    from flye_jax.io.fasta import reverse_complement
 
     tv, tp = _unique_map(*_kmer_pack(truth))
     best = None
@@ -135,7 +136,7 @@ def contig_errors(ctg, truth):
 
 
 def main():
-    from flye_tpu.io.fasta import read_seq_file
+    from flye_jax.io.fasta import read_seq_file
 
     truth = read_seq_file(sys.argv[1])[0][1]
     total_body = 0

@@ -24,21 +24,14 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-
-# FLYE_TPU_CPU=1 pins this run to the CPU backend (so a scale run can
-# own the chip concurrently); must happen before any jax array use
-if os.environ.get("FLYE_TPU_CPU") == "1":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
 
 def make_diploid(glen: int, snp_rate: float = 0.003, sv_every: int = 250_000,
                  seed: int = 17):
-    from flye_tpu.utils.simulate import random_genome
+    from flye_jax.utils.simulate import random_genome
 
     rng = np.random.default_rng(seed)
     hap_a = random_genome(glen, seed=seed, repeat_spec=[(5000, 3)])
@@ -71,11 +64,11 @@ def make_diploid(glen: int, snp_rate: float = 0.003, sv_every: int = 250_000,
 def main():
     mb = float(sys.argv[1]) if len(sys.argv) > 1 else 5.0
     cov = float(sys.argv[2]) if len(sys.argv) > 2 else 40.0
-    outdir = sys.argv[3] if len(sys.argv) > 3 else "/tmp/diploid_out"
+    outdir = sys.argv[3] if len(sys.argv) > 3 else "diploid_out"
     keep = "--keep" in sys.argv
 
-    from flye_tpu.io.fasta import read_seq_file, write_fasta
-    from flye_tpu.utils.simulate import simulate_reads
+    from flye_jax.io.fasta import read_seq_file, write_fasta
+    from flye_jax.utils.simulate import simulate_reads
 
     glen = int(mb * 1_000_000)
     hap_a, hap_b, n_snp, n_sv = make_diploid(glen)
@@ -92,7 +85,7 @@ def main():
     print(f"[diploid] {len(reads)} reads "
           f"({sum(len(s) for _, s in reads)} bases)", flush=True)
 
-    from flye_tpu.main import main as flye_main
+    from flye_jax.main import main as flye_main
     args = ["--pacbio-raw", reads_path, "-o", outdir, "-g", f"{glen}"]
     if keep:
         args.append("--keep-haplotypes")
@@ -103,8 +96,7 @@ def main():
     if rc != 0:
         sys.exit(rc)
 
-    sys.path.insert(0, "/root/repo/scripts")
-    from run_scale import window_identity
+        from flye_jax.utils.simulate import window_identity
     contigs = read_seq_file(outdir + "/assembly.fasta")
     total = sum(len(s) for _, s in contigs)
     print(f"[diploid] {len(contigs)} contigs, {total} bp "

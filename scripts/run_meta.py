@@ -15,14 +15,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-
-# FLYE_TPU_CPU=1 pins this run to the CPU backend (so a scale run can
-# own the chip concurrently); must happen before any jax array use
-if os.environ.get("FLYE_TPU_CPU") == "1":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
@@ -35,10 +28,10 @@ SPECIES = [  # (length, coverage, seed)
 
 
 def main():
-    outdir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/meta_out"
+    outdir = sys.argv[1] if len(sys.argv) > 1 else "meta_out"
 
-    from flye_tpu.io.fasta import read_seq_file, write_fasta
-    from flye_tpu.utils.simulate import random_genome, simulate_reads
+    from flye_jax.io.fasta import read_seq_file, write_fasta
+    from flye_jax.utils.simulate import random_genome, simulate_reads
 
     genomes = []
     reads = []
@@ -59,7 +52,7 @@ def main():
     print(f"[meta] community {total_g} bp, "
           f"{sum(len(s) for _, s in reads)} read bases", flush=True)
 
-    from flye_tpu.main import main as flye_main
+    from flye_jax.main import main as flye_main
     t0 = time.perf_counter()
     rc = flye_main(["--pacbio-raw", reads_path, "-o", outdir,
                     "-g", f"{total_g}", "--meta"])
@@ -68,8 +61,7 @@ def main():
     if rc != 0:
         sys.exit(rc)
 
-    sys.path.insert(0, "/root/repo/scripts")
-    from run_scale import window_identity
+        from flye_jax.utils.simulate import window_identity
     contigs = read_seq_file(outdir + "/assembly.fasta")
     print(f"[meta] {len(contigs)} contigs, "
           f"{sum(len(s) for _, s in contigs)} bp total", flush=True)

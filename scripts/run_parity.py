@@ -12,10 +12,10 @@ Usage:
       OUT_B/assembly.fasta ...
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/scripts")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
@@ -32,8 +32,8 @@ def ng50(lengths, genome_size):
 
 
 def simulate(out_path):
-    from flye_tpu.io.fasta import read_seq_file, write_fasta
-    from flye_tpu.utils.simulate import simulate_reads
+    from flye_jax.io.fasta import read_seq_file, write_fasta
+    from flye_jax.utils.simulate import simulate_reads
 
     genome = read_seq_file(TRUTH)[0][1]
     reads = simulate_reads(genome, coverage=30, mean_length=8000,
@@ -47,8 +47,8 @@ def simulate(out_path):
 
 
 def compare(truth_path, *assemblies):
-    from flye_tpu.io.fasta import read_seq_file
-    from run_scale import window_identity
+    from flye_jax.io.fasta import read_seq_file
+    from flye_jax.utils.simulate import window_identity
 
     genome = read_seq_file(truth_path)[0][1]
     print(f"{'assembly':40} {'#ctg':>5} {'total':>9} {'NG50':>9} "

@@ -1,152 +1,45 @@
-"""Scale validation: multi-Mb simulated genome E2E on the live chip.
+"""Scale validation: multi-Mb simulated genome through the CLI.
 
-Generates an N-Mb genome (with planted repeats), simulates PacBio-raw
-reads, runs the full pipeline, and reports per-stage wall times plus a
+Generates an N-Mb genome (with planted repeats), simulates reads, runs
+the full pipeline, and reports per-stage wall times plus a
 window-sampled identity estimate vs the truth genome.
 
 Usage: python scripts/run_scale.py [genome_mb] [coverage] [outdir] [mode]
 
 mode: pacbio-raw (default) | nano-raw | pacbio-hifi — picks the CLI
-read-type flag and a matching simulated error profile.
+read-type flag and a matching simulated error profile
+(flye_jax.utils.simulate.READ_PROFILES).
 """
 
 import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-
-import numpy as np
-
-MODES = {
-    # mode -> (error_rate, (sub, ins, del) mix)
-    "pacbio-raw": (0.08, (0.2, 0.5, 0.3)),
-    "nano-raw": (0.10, (0.35, 0.25, 0.40)),
-    "pacbio-hifi": (0.005, (0.4, 0.3, 0.3)),
-}
-
-
-def window_identity(contigs, genome, n_windows=400, win=2000, seed=0,
-                    k=32):
-    """Sample windows from the contigs, anchor each to the truth genome
-    by an exact k-mer, and edit-distance the window against the anchored
-    truth slice.
-
-    Anchoring tries several k-mer offsets within the window (an assembly
-    error in the first k-mer must not silently skip a window), considers
-    every genome occurrence of a repeated anchor k-mer (taking the best
-    identity), and skips occurrences whose truth slice would clip at the
-    genome ends.  Returns (mean_identity, n_anchored, n_sampled)."""
-    from flye_tpu.io.fasta import COMPLEMENT
-    from flye_tpu.ops.align import edit_distance_batch
-
-    # truth k-mer -> all occurrence positions (forward strand)
-    def pack(seq):
-        out = np.zeros(len(seq) - k + 1, np.uint64)
-        for i in range(k):
-            out = (out << np.uint64(2)) | seq[i:i + len(out)].astype(
-                np.uint64)
-        return out
-
-    occ = {}
-    for pos, km in enumerate(pack(genome)):
-        occ.setdefault(int(km), []).append(pos)
-
-    rng = np.random.default_rng(seed)
-    rows_a, rows_b, lens_a, lens_b, groups = [], [], [], [], []
-    n_sampled = 0
-    pad = win // 5
-    S = 1
-    while S < win + 2 * pad + 1:
-        S <<= 1
-    total = sum(len(s) for _, s in contigs)
-    if total == 0:
-        return 0.0, 0, 0
-    for name, seq in contigs:
-        if len(seq) < win + k:
-            continue
-        per = max(1, int(n_windows * len(seq) / total))
-        for _ in range(per):
-            st = int(rng.integers(0, len(seq) - win))
-            w = seq[st:st + win]
-            wr = COMPLEMENT[w[::-1]]
-            n_sampled += 1
-            gid = n_sampled - 1
-            anchored = False
-            for off in (0, win // 4, win // 2):
-                for cand in (w, wr):
-                    km = 0
-                    for i in range(k):
-                        km = (km << 2) | int(cand[off + i])
-                    for tpos in occ.get(km, ())[:4]:
-                        w0 = tpos - off  # window start on the genome
-                        if w0 - pad < 0 or w0 + win + pad > len(genome):
-                            continue
-                        tslice = genome[w0 - pad:w0 + win + pad]
-                        ra = np.zeros(S, np.uint8)
-                        rb = np.zeros(S, np.uint8)
-                        ra[:win] = cand
-                        rb[:len(tslice)] = tslice
-                        rows_a.append(ra)
-                        rows_b.append(rb)
-                        lens_a.append(win)
-                        lens_b.append(len(tslice))
-                        groups.append(gid)
-                        anchored = True
-                    if anchored:
-                        break
-                if anchored:
-                    break
-    if not rows_a:
-        return 0.0, 0, n_sampled
-    d = np.asarray(edit_distance_batch(
-        np.stack(rows_a), np.array(lens_a, np.int32),
-        np.stack(rows_b), np.array(lens_b, np.int32)))
-    # the truth slice is longer by up to 2*pad; subtract the slack so a
-    # perfect window scores ~1.0
-    slack = np.array(lens_b) - np.array(lens_a)
-    ident = 1.0 - np.maximum(d - slack, 0) / np.array(lens_a)
-    # repeated anchors: best identity among a window's occurrences
-    groups = np.asarray(groups)
-    best = {}
-    for g, v in zip(groups, ident):
-        if v > best.get(g, -1.0):
-            best[g] = v
-    vals = np.asarray(list(best.values()))
-    return float(vals.mean()), len(best), n_sampled
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
     mb = float(sys.argv[1]) if len(sys.argv) > 1 else 2.5
     cov = float(sys.argv[2]) if len(sys.argv) > 2 else 30.0
-    outdir = sys.argv[3] if len(sys.argv) > 3 else "/tmp/scale_out"
+    outdir = sys.argv[3] if len(sys.argv) > 3 else "scale_out"
     mode = sys.argv[4] if len(sys.argv) > 4 else "pacbio-raw"
-    err, mix = MODES[mode]
 
-    from flye_tpu.io.fasta import write_fasta, read_seq_file
-    from flye_tpu.utils.simulate import random_genome, simulate_reads
+    from flye_jax.io.fasta import read_seq_file
+    from flye_jax.utils.simulate import (isolate_deployment,
+                                         window_identity, write_reads)
 
     glen = int(mb * 1_000_000)
     print(f"[scale] genome {glen} bp, coverage {cov}x, mode {mode}",
           flush=True)
-    genome = random_genome(glen, seed=11,
-                           repeat_spec=[(5000, 3), (2000, 4)])
-    reads_path = outdir + ".reads.fasta"
-    if os.path.exists(reads_path) and os.path.getsize(reads_path) > 0:
-        # deterministic simulation (fixed seeds): an existing reads
-        # file for this outdir is identical to what we would write, so
-        # reuse it (lets a long run pre-generate reads, and a relaunch
-        # after an interruption skip the ~minutes of simulation)
-        print(f"[scale] reusing existing {reads_path}", flush=True)
-    else:
-        t0 = time.perf_counter()
-        reads = simulate_reads(genome, coverage=cov, mean_length=8000,
-                               error_rate=err, error_mix=mix, seed=7)
-        print(f"[scale] simulated {len(reads)} reads in "
-              f"{time.perf_counter() - t0:.0f}s", flush=True)
-        write_fasta(reads, reads_path)
+    t0 = time.perf_counter()
+    genome, reads = isolate_deployment(glen, cov, mode)
+    print(f"[scale] simulated {len(reads)} reads in "
+          f"{time.perf_counter() - t0:.0f}s", flush=True)
+    os.makedirs(outdir, exist_ok=True)
+    reads_path = os.path.join(outdir, "reads.fasta")
+    write_reads(reads, reads_path)
 
-    from flye_tpu.main import main as flye_main
+    from flye_jax.main import main as flye_main
     t0 = time.perf_counter()
     rc = flye_main([f"--{mode}", reads_path, "-o", outdir,
                     "-g", f"{glen}"])
@@ -155,7 +48,7 @@ def main():
     if rc != 0:
         sys.exit(rc)
 
-    contigs = read_seq_file(outdir + "/assembly.fasta")
+    contigs = read_seq_file(os.path.join(outdir, "assembly.fasta"))
     total = sum(len(s) for _, s in contigs)
     print(f"[scale] {len(contigs)} contigs, {total} bp "
           f"(truth {glen})", flush=True)

@@ -1,5 +1,5 @@
 """Adversarial read simulation: chimeric reads, adapter junk, coverage
-dropouts (flye_tpu/utils/simulate.py round-4 extensions), asserting the
+dropouts (flye_jax/utils/simulate.py round-4 extensions), asserting the
 defenses built for them actually fire (reference analog:
 src/assemble/chimera.cpp:106-180 per-read coverage-drop testing).
 
@@ -14,7 +14,7 @@ truth loci) or the contig set degrades.
 import numpy as np
 import pytest
 
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 pytestmark = pytest.mark.slow
 
@@ -37,7 +37,7 @@ def _max_junction_jump(contig, genome, k=32, stride=400):
     near the indel noise (<~2 kb); a fused junction shows up as a jump
     of the distance between the fused loci."""
     occ = _pack_occ(genome, k)
-    from flye_tpu.io.fasta import COMPLEMENT
+    from flye_jax.io.fasta import COMPLEMENT
     best = None
     for seq in (contig, COMPLEMENT[contig[::-1]]):
         if len(seq) < k + stride:
@@ -63,8 +63,8 @@ def _max_junction_jump(contig, genome, k=32, stride=400):
 
 
 def _assemble(reads, tmp_path, tag, which="00-assembly/draft_assembly"):
-    from flye_tpu.io.fasta import read_seq_file, write_fasta
-    from flye_tpu.main import main
+    from flye_jax.io.fasta import read_seq_file, write_fasta
+    from flye_jax.main import main
     rp = tmp_path / f"reads_{tag}.fasta"
     if not rp.exists():
         write_fasta(reads, str(rp))
@@ -79,11 +79,11 @@ def _assemble(reads, tmp_path, tag, which="00-assembly/draft_assembly"):
 def test_chimera_detection_rate(tmp_path):
     """The per-read coverage-drop test must catch nearly every planted
     chimera (reference: chimera.cpp:106-180 testReadByCoverage)."""
-    from flye_tpu.assemble.chimera import ChimeraDetector
-    from flye_tpu.assemble.driver import build_read_index
-    from flye_tpu.config import Config
-    from flye_tpu.io.seqstore import SequenceStore
-    from flye_tpu.overlap import OverlapEngine, OverlapStore
+    from flye_jax.assemble.chimera import ChimeraDetector
+    from flye_jax.assemble.driver import build_read_index
+    from flye_jax.config import Config
+    from flye_jax.io.seqstore import SequenceStore
+    from flye_jax.overlap import OverlapEngine, OverlapStore
 
     genome = random_genome(60000, seed=21)
     reads = simulate_reads(genome, coverage=25, mean_length=6000,
@@ -146,7 +146,7 @@ def test_chimera_detector_is_load_bearing(tmp_path, monkeypatch):
         f"chimeric junction leaked into the final assembly: {jumps_on}")
 
     # force-disable the detector and show the draft degrades
-    from flye_tpu.assemble import chimera as chim_mod
+    from flye_jax.assemble import chimera as chim_mod
     monkeypatch.setattr(chim_mod.ChimeraDetector, "is_chimeric",
                         lambda self, sid, ovlps: False)
     draft_off = _assemble(reads, tmp_path, "chim_off")

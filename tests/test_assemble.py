@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from flye_tpu.assemble import assemble_disjointigs
-from flye_tpu.config import Config
-from flye_tpu.io import SequenceStore
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.assemble import assemble_disjointigs
+from flye_jax.config import Config
+from flye_jax.io import SequenceStore
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 def kmer_set(codes, k=15):
     """K-mers of both strands (a disjointig may come out rc-oriented)."""
-    from flye_tpu.io.fasta import reverse_complement
+    from flye_jax.io.fasta import reverse_complement
     out = set()
     for seq in (codes, reverse_complement(codes)):
         v = 0

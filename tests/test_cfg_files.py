@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from flye_tpu.config.params import Config, load_cfg_file
+from flye_jax.config.params import Config, load_cfg_file
 
 
 def write(tmp_path, name, text):

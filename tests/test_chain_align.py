@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from flye_tpu.ops.align import (SegmentBatcher, anchored_divergence,
+from flye_jax.ops.align import (SegmentBatcher, anchored_divergence,
                                 edit_distance_batch, hpc_compress)
-from flye_tpu.ops.chain import backtrack_chains, chain_dp
+from flye_jax.ops.chain import backtrack_chains, chain_dp
 
 
 def oracle_chain(cur, ext, k, max_jump):

@@ -1,6 +1,6 @@
 import pytest
 
-from flye_tpu.config import Config, setup_run_params
+from flye_jax.config import Config, setup_run_params
 
 
 def test_read_type_overlays():
@@ -58,9 +58,9 @@ def test_nano_model_flag_selects_r7():
     """--nano-model r7 routes the polisher to the legacy pore tables
     (reference ships nano_r7 matrices alongside r94,
     flye/config/py_cfg.py:52-67)."""
-    from flye_tpu.main import RunContext, build_parser
-    from flye_tpu.polishing.homopolisher import get_hopo_model
-    from flye_tpu.polishing.matrices import get_subs_matrix
+    from flye_jax.main import RunContext, build_parser
+    from flye_jax.polishing.homopolisher import get_hopo_model
+    from flye_jax.polishing.matrices import get_subs_matrix
 
     args = build_parser().parse_args(
         ["--nano-raw", "r.fa", "-o", "/tmp/x", "--nano-model", "r7"])

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from flye_tpu.parallel import host_partition, init_distributed, is_coordinator
+from flye_jax.parallel import host_partition, init_distributed, is_coordinator
 
 
 def test_init_single_process_noop():

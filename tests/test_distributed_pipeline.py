@@ -12,11 +12,11 @@ import jax
 import numpy as np
 import pytest
 
-from flye_tpu.config import Config
-from flye_tpu.io import SequenceStore
-from flye_tpu.parallel import (ParallelContext, get_runtime, make_mesh,
+from flye_jax.config import Config
+from flye_jax.io import SequenceStore
+from flye_jax.parallel import (ParallelContext, get_runtime, make_mesh,
                                set_runtime)
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 @pytest.fixture
@@ -51,7 +51,7 @@ def test_assemble_stage_mesh_identical(read_store, runtime_guard):
     to ShardedKmerIndex.build_minimizers_mesh, every stream/chain kernel
     shards its batch axis, and the resulting disjointigs must match
     byte for byte."""
-    from flye_tpu.assemble import assemble_disjointigs
+    from flye_jax.assemble import assemble_disjointigs
 
     results = {}
     for n in (1, len(jax.devices())):
@@ -70,8 +70,8 @@ def test_assemble_stage_mesh_identical(read_store, runtime_guard):
 def test_index_build_routes_to_mesh(read_store, runtime_guard):
     """build_minimizer_index must return the hash-sharded mesh-built
     index when the runtime is active, and answer identically."""
-    from flye_tpu.index import KmerIndex, build_minimizer_index
-    from flye_tpu.index.sharded import ShardedKmerIndex
+    from flye_jax.index import KmerIndex, build_minimizer_index
+    from flye_jax.index.sharded import ShardedKmerIndex
 
     _with_mesh(len(jax.devices()))
     assert get_runtime().active
@@ -90,8 +90,8 @@ def test_index_build_routes_to_mesh(read_store, runtime_guard):
 def test_polish_kernel_mesh_identical(runtime_guard):
     """The polish hill-climb with the bubble axis sharded over the mesh
     == single device (bit-identical f32: same program, partitioned)."""
-    from flye_tpu.ops.polish import polish_bubbles
-    from flye_tpu.polishing.matrices import get_subs_matrix
+    from flye_jax.ops.polish import polish_bubbles
+    from flye_jax.polishing.matrices import get_subs_matrix
 
     rng = np.random.default_rng(7)
     B, Cb, R, S = 32, 96, 8, 96
@@ -125,8 +125,8 @@ def test_solid_index_build_routes_to_mesh(read_store, runtime_guard):
     """The raw-read (solid-kmer) build must also route to the
     hash-sharded mesh build when the runtime is active (round-2 gap:
     only the minimizer path had a mesh route)."""
-    from flye_tpu.index import build_solid_index
-    from flye_tpu.index.sharded import ShardedKmerIndex
+    from flye_jax.index import build_solid_index
+    from flye_jax.index.sharded import ShardedKmerIndex
 
     _with_mesh(len(jax.devices()))
     assert get_runtime().active

@@ -1,9 +1,9 @@
 import numpy as np
 
-from flye_tpu.config import Config
-from flye_tpu.io import SequenceStore
-from flye_tpu.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
-from flye_tpu.repeat.haplotype import HaplotypeResolver
+from flye_jax.config import Config
+from flye_jax.io import SequenceStore
+from flye_jax.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
+from flye_jax.repeat.haplotype import HaplotypeResolver
 
 
 def make_bubble_graph():

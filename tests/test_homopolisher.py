@@ -1,6 +1,6 @@
 import numpy as np
 
-from flye_tpu.polishing.homopolisher import (fix_dinucleotide_repeats,
+from flye_jax.polishing.homopolisher import (fix_dinucleotide_repeats,
                                              get_hopo_model,
                                              polish_homopolymers)
 

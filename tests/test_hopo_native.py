@@ -4,8 +4,8 @@ implementation, bubble by bubble."""
 import numpy as np
 import pytest
 
-from flye_tpu import native
-from flye_tpu.polishing.homopolisher import (fix_dinucleotide_repeats,
+from flye_jax import native
+from flye_jax.polishing.homopolisher import (fix_dinucleotide_repeats,
                                              get_hopo_model,
                                              polish_homopolymers)
 

@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from flye_tpu.index import KmerIndex
-from flye_tpu.io import SequenceStore
-from flye_tpu.io.fasta import COMPLEMENT
-from flye_tpu.utils.simulate import random_genome
+from flye_jax.index import KmerIndex
+from flye_jax.io import SequenceStore
+from flye_jax.io.fasta import COMPLEMENT
+from flye_jax.utils.simulate import random_genome
 
 
 def oracle_canon(codes, p, k):
@@ -141,7 +141,7 @@ def test_solid_device_select_byte_identical(rng):
                                      device_select=False)
         # a device-path failure silently falls back to host counting,
         # which would make this test vacuous — fail hard instead
-        logger = logging.getLogger("flye_tpu")
+        logger = logging.getLogger("flye_jax")
         records = []
 
         class _Trap(logging.Handler):
@@ -174,7 +174,7 @@ def test_flat_counter_matches_argsort_selection(rng, monkeypatch):
     """The native flat-counter frequency pass must produce the same
     solid-index selection as the argsort counting path (saturation at
     255 is masked by the <=4 threshold clamp)."""
-    import flye_tpu.native as native
+    import flye_jax.native as native
 
     genome = random_genome(800, seed=17)
     store = SequenceStore()

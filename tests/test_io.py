@@ -3,10 +3,10 @@ import gzip
 import numpy as np
 import pytest
 
-from flye_tpu.io import (SequenceStore, SeqId, codes_to_str, read_seq_file,
+from flye_jax.io import (SequenceStore, SeqId, codes_to_str, read_seq_file,
                          str_to_codes, write_fasta)
-from flye_tpu.io.fasta import reverse_complement
-from flye_tpu.io.seqstore import compute_nx
+from flye_jax.io.fasta import reverse_complement
+from flye_jax.io.seqstore import compute_nx
 
 
 def test_codes_roundtrip():

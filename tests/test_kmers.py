@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from flye_tpu.io.fasta import COMPLEMENT
-from flye_tpu.ops import (canonical_kmers, extract_kmers, kmer_hashes,
+from flye_jax.io.fasta import COMPLEMENT
+from flye_jax.ops import (canonical_kmers, extract_kmers, kmer_hashes,
                           minimizer_mask, sample_mask, splitmix64)
 
 

@@ -5,7 +5,7 @@ integer reductions via psum are order-independent by construction)."""
 import numpy as np
 import pytest
 
-from flye_tpu.parallel import make_mesh, sharded_pipeline_step
+from flye_jax.parallel import make_mesh, sharded_pipeline_step
 
 
 def run_step(n_devices, codes, lengths, cur, ext, nmatch):

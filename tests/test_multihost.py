@@ -16,8 +16,8 @@ import sys
 import numpy as np
 import pytest
 
-from flye_tpu.io.fasta import write_fasta
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.io.fasta import write_fasta
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 pytestmark = pytest.mark.slow
 
@@ -31,7 +31,7 @@ os.environ["JAX_PROCESS_ID"] = str(pid)
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
-from flye_tpu.main import main
+from flye_jax.main import main
 rc = main(["--pacbio-raw", {reads!r}, "-o", {out!r},
            "-g", "20k", "-m", "1500"])
 sys.exit(rc)
@@ -39,7 +39,7 @@ sys.exit(rc)
 
 
 def _run_single(reads_path, out):
-    from flye_tpu.main import main
+    from flye_jax.main import main
     assert main(["--pacbio-raw", str(reads_path), "-o", str(out),
                  "-g", "20k", "-m", "1500"]) == 0
 
@@ -86,7 +86,7 @@ def test_two_process_run_matches_single(tmp_path):
 
 
 def test_host_partition_covers_and_disjoint():
-    from flye_tpu.parallel.distributed import host_partition
+    from flye_jax.parallel.distributed import host_partition
     ids = list(range(0, 40))  # 20 fwd/rev pairs
     p0 = host_partition(ids, 0, 2)
     p1 = host_partition(ids, 1, 2)

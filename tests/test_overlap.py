@@ -3,11 +3,11 @@ import re
 import numpy as np
 import pytest
 
-from flye_tpu.index import KmerIndex
-from flye_tpu.io import SequenceStore
-from flye_tpu.io.seqstore import SeqId
-from flye_tpu.overlap import Overlap, OverlapEngine, OverlapStore
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.index import KmerIndex
+from flye_jax.io import SequenceStore
+from flye_jax.io.seqstore import SeqId
+from flye_jax.overlap import Overlap, OverlapEngine, OverlapStore
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 def parse_name(name):
@@ -165,10 +165,10 @@ def test_chunked_posting_gather_identical():
     must not change any overlap."""
     import numpy as np
 
-    from flye_tpu.index import KmerIndex
-    from flye_tpu.io import SequenceStore
-    from flye_tpu.overlap import OverlapEngine
-    from flye_tpu.utils.simulate import random_genome, simulate_reads
+    from flye_jax.index import KmerIndex
+    from flye_jax.io import SequenceStore
+    from flye_jax.overlap import OverlapEngine
+    from flye_jax.utils.simulate import random_genome, simulate_reads
 
     genome = random_genome(15000, seed=31)
     reads = simulate_reads(genome, coverage=8, mean_length=4000,

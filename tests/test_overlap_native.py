@@ -7,11 +7,11 @@ engine's north star)."""
 import numpy as np
 import pytest
 
-import flye_tpu.native as native
-from flye_tpu.index import KmerIndex
-from flye_tpu.io import SequenceStore
-from flye_tpu.overlap import OverlapEngine
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+import flye_jax.native as native
+from flye_jax.index import KmerIndex
+from flye_jax.io import SequenceStore
+from flye_jax.overlap import OverlapEngine
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +96,7 @@ def test_chain_dp_host_matches_scan():
     for groups within the lookback window."""
     import numpy as np
 
-    from flye_tpu.ops.chain import _chain_dp_scan
+    from flye_jax.ops.chain import _chain_dp_scan
 
     mod = native.get()
     rng = np.random.default_rng(3)

@@ -1,6 +1,6 @@
 """Hash-partitioned multi-process index + ava (parallel/partitioned.py).
 
-Two OS processes, CPU backend, FLYE_TPU_PARTITIONED=1: each process
+Two OS processes, CPU backend, FLYE_JAX_PARTITIONED=1: each process
 builds only its k-mer hash shard of the index (count exchange -> freq
 join -> select -> posting exchange) and the ava probes route through
 the file bus.  The assembly must be byte-identical to a single-process
@@ -15,8 +15,8 @@ import sys
 
 import pytest
 
-from flye_tpu.io.fasta import write_fasta
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.io.fasta import write_fasta
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 pytestmark = pytest.mark.slow
 
@@ -27,11 +27,11 @@ import os
 os.environ["JAX_COORDINATOR_ADDRESS"] = "127.0.0.1:{port}"
 os.environ["JAX_NUM_PROCESSES"] = "2"
 os.environ["JAX_PROCESS_ID"] = str(pid)
-os.environ["FLYE_TPU_PARTITIONED"] = "1"
+os.environ["FLYE_JAX_PARTITIONED"] = "1"
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
-from flye_tpu.main import main
+from flye_jax.main import main
 rc = main(["--pacbio-raw", {reads!r}, "-o", {out!r},
            "-g", "20k", "-m", "1500", "--debug"])
 sys.exit(rc)
@@ -46,7 +46,7 @@ def test_partitioned_two_process_matches_single(tmp_path):
     write_fasta(reads, str(reads_path))
 
     out1 = tmp_path / "out_single"
-    from flye_tpu.main import main
+    from flye_jax.main import main
     assert main(["--pacbio-raw", str(reads_path), "-o", str(out1),
                  "-g", "20k", "-m", "1500"]) == 0
 

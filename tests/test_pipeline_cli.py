@@ -14,8 +14,8 @@ import pytest
 # full E2E runs: excluded from the fast unit gate (run with -m slow)
 pytestmark = pytest.mark.slow
 
-from flye_tpu.io.fasta import read_seq_file, write_fasta
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.io.fasta import read_seq_file, write_fasta
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +36,7 @@ def run_dir(tmp_path_factory):
 
 
 def _run(reads_path, out, *extra):
-    from flye_tpu.main import main
+    from flye_jax.main import main
     return main(["--pacbio-raw", str(reads_path), "-o", str(out),
                  "-g", "20k", "-m", "1500", *extra])
 
@@ -80,7 +80,7 @@ def test_resume_from_finalize(run_dir):
 
 def test_resume_missing_stage_outputs(run_dir, tmp_path):
     d, genome, reads_path = run_dir
-    from flye_tpu.main import main
+    from flye_jax.main import main
     rc = main(["--pacbio-raw", str(reads_path), "-o", str(tmp_path),
                "-g", "20k", "--resume-from", "polishing"])
     assert rc != 0

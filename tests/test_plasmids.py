@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from flye_tpu.io import SequenceStore
-from flye_tpu.plasmids import recover_short_plasmids
-from flye_tpu.plasmids.plasmids import (find_circular_reads,
+from flye_jax.io import SequenceStore
+from flye_jax.plasmids import recover_short_plasmids
+from flye_jax.plasmids.plasmids import (find_circular_reads,
                                         find_unmapped_reads)
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 @pytest.mark.slow
@@ -45,7 +45,7 @@ def test_plasmid_recovery():
     name, seq = plasmids[0]
     assert 2500 <= len(seq) <= 3600
     # plasmid sequence should share most 15-mers with the true plasmid
-    from flye_tpu.io.fasta import reverse_complement
+    from flye_jax.io.fasta import reverse_complement
 
     def kset(c, k=15):
         out = set()

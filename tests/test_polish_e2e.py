@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from flye_tpu.io import SequenceStore
-from flye_tpu.ops.align import edit_distance_batch
-from flye_tpu.polishing.polisher import polish
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.io import SequenceStore
+from flye_jax.ops.align import edit_distance_batch
+from flye_jax.polishing.polisher import polish
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 def identity(a: np.ndarray, b: np.ndarray) -> float:
@@ -51,7 +51,7 @@ def test_polish_recovers_genome(rng):
     for name, codes in reads:
         store.add(name, codes)
 
-    # small bubbles keep the CPU test fast; the TPU path uses the
+    # small bubbles keep the CPU test fast; the pipeline uses the
     # reference's 500bp windows
     polished = polish([("contig_1", draft)], store, "pacbio",
                       num_iters=1, max_bubble=120)
@@ -71,7 +71,7 @@ def test_polish_no_reads_is_noop(rng):
 
 def test_coalesce_buckets():
     """Small buckets merge upward into superset shapes; big ones stay."""
-    from flye_tpu.polishing.polisher import _coalesce
+    from flye_jax.polishing.polisher import _coalesce
     items = {
         (64, 96, 8): list(range(5)),
         (64, 96, 16): list(range(3)),

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from flye_tpu.ops.polish import polish_bubbles
-from flye_tpu.polishing.matrices import get_subs_matrix
+from flye_jax.ops.polish import polish_bubbles
+from flye_jax.polishing.matrices import get_subs_matrix
 
 SUBS = get_subs_matrix("pacbio").astype(np.float64)
 
@@ -155,7 +155,7 @@ def test_branch_group_scoring_equivalence():
     decompose over groups; the 4-char argmax happens after the
     reduction (ops/polish._finish_scores)."""
     import jax.numpy as jnp
-    from flye_tpu.ops.polish import (_finish_scores, _score_edits_jnp,
+    from flye_jax.ops.polish import (_finish_scores, _score_edits_jnp,
                                      _score_edits_raw_jnp)
     rng = np.random.default_rng(11)
     B, Cb, R, S = 3, 20, 20, 30
@@ -215,10 +215,10 @@ def test_polish_bubbles_many_branches():
     bmask = np.ones((B, R), bool)
     subs = np.log(np.full((5, 5), 0.05, np.float32))
     np.fill_diagonal(subs[:4, :4], np.log(0.8))
-    from flye_tpu.ops.polish import polish_bubbles
+    from flye_jax.ops.polish import polish_bubbles
     out_c, out_l, _, _ = polish_bubbles(cand, clen, branches, blen,
                                         bmask, subs, max_iters=24,
-                                        use_pallas=False)
+                                        route="stepped")
     for i in range(B):
         n = int(out_l[i])
         assert n == C

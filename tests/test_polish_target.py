@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from flye_tpu.io.fasta import read_seq_file, write_fasta
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.io.fasta import read_seq_file, write_fasta
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 def test_polish_target_cli(tmp_path):
-    from flye_tpu.main import main
+    from flye_jax.main import main
 
     genome = random_genome(8000, seed=11)
     reads = simulate_reads(genome, coverage=14, mean_length=3000,
@@ -35,7 +35,7 @@ def test_polish_target_cli(tmp_path):
 
     # edit distance, not positional mismatch: a single indel introduced
     # by polishing shifts every downstream position
-    from flye_tpu.ops.align import edit_distance_batch
+    from flye_jax.ops.align import edit_distance_batch
 
     def ed(a, b):
         m = max(len(a), len(b))
@@ -53,14 +53,14 @@ def test_polish_target_cli(tmp_path):
 
 
 def test_hifi_error_requires_hifi(tmp_path, capsys):
-    from flye_tpu.main import main
+    from flye_jax.main import main
     with pytest.raises(SystemExit):
         main(["--pacbio-raw", "x.fa", "-o", str(tmp_path), "-g", "1m",
               "--hifi-error", "0.003"])
 
 
 def test_hifi_error_sets_divergence(tmp_path):
-    from flye_tpu.main import build_parser
+    from flye_jax.main import build_parser
     p = build_parser()
     a = p.parse_args(["--pacbio-hifi", "x.fa", "-o", str(tmp_path),
                       "-g", "1m", "--hifi-error", "0.003"])

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from flye_tpu.io.fasta import codes_to_str, write_fasta
-from flye_tpu.polishing.polished_edges import (generate_polished_gfa,
+from flye_jax.io.fasta import codes_to_str, write_fasta
+from flye_jax.polishing.polished_edges import (generate_polished_gfa,
                                                polish_edge_sequences)
-from flye_tpu.utils.simulate import random_genome
+from flye_jax.utils.simulate import random_genome
 
 
 def _noisy(seq, every=150, seed=3):
@@ -31,7 +31,7 @@ def test_polish_edge_sequences_replaces_errors():
 
 
 def test_polish_edge_reverse_strand():
-    from flye_tpu.io.fasta import reverse_complement
+    from flye_jax.io.fasta import reverse_complement
     genome = random_genome(26000, seed=12)
     edge_true = reverse_complement(genome[1000:21000])
     edge_noisy = _noisy(edge_true)

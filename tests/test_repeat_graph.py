@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from flye_tpu.assemble import assemble_disjointigs
-from flye_tpu.config import Config
-from flye_tpu.contigger import generate_contigs
-from flye_tpu.io import SequenceStore
-from flye_tpu.repeat.driver import analyse_repeats
-from flye_tpu.repeat.processing import get_unbranching_paths
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.assemble import assemble_disjointigs
+from flye_jax.config import Config
+from flye_jax.contigger import generate_contigs
+from flye_jax.io import SequenceStore
+from flye_jax.repeat.driver import analyse_repeats
+from flye_jax.repeat.processing import get_unbranching_paths
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 def build_stores(genome, coverage, seed, error_rate=0.0):
@@ -88,7 +88,7 @@ def test_repeat_stage_with_repeat(tmp_path):
 
 def test_graph_dump_roundtrip(tmp_path):
     # construct a tiny graph by hand and round-trip the dump
-    from flye_tpu.repeat.graph import (EdgeSequence, GraphEdge,
+    from flye_jax.repeat.graph import (EdgeSequence, GraphEdge,
                                        RepeatGraph)
     store = SequenceStore()
     store.add("d1", np.zeros(1000, np.uint8))
@@ -112,7 +112,7 @@ def test_graph_dump_roundtrip(tmp_path):
 
 
 def _mk_edge_pair(g, n1, n2, n1c, n2c, base_id, cov=0):
-    from flye_tpu.repeat.graph import GraphEdge
+    from flye_jax.repeat.graph import GraphEdge
     e = GraphEdge(n1, n2, base_id)
     e.mean_coverage = cov
     g.add_edge(e)
@@ -128,16 +128,16 @@ class _FakeAligner:
         self.alignments = alignments
 
     def update_alignments(self):
-        from flye_tpu.repeat.read_aligner import ReadAligner
+        from flye_jax.repeat.read_aligner import ReadAligner
         ReadAligner.update_alignments(self)
 
 
 def test_split_nodes_chimeric_junction():
     """A 2-in/2-out node whose reads only connect A->C and B->D must
     split into two nodes (reference splitNodes behavior)."""
-    from flye_tpu.repeat.graph import RepeatGraph
-    from flye_tpu.repeat.multiplicity import MultiplicityInferer
-    from flye_tpu.repeat.read_aligner import EdgeAlignment
+    from flye_jax.repeat.graph import RepeatGraph
+    from flye_jax.repeat.multiplicity import MultiplicityInferer
+    from flye_jax.repeat.read_aligner import EdgeAlignment
 
     store = SequenceStore()
     g = RepeatGraph(store)
@@ -173,8 +173,8 @@ def test_split_nodes_chimeric_junction():
 
 
 def test_disconnect_minor_paths_detaches_weak_path():
-    from flye_tpu.repeat.graph import RepeatGraph
-    from flye_tpu.repeat.multiplicity import MultiplicityInferer
+    from flye_jax.repeat.graph import RepeatGraph
+    from flye_jax.repeat.multiplicity import MultiplicityInferer
 
     store = SequenceStore()
     g = RepeatGraph(store)
@@ -213,10 +213,10 @@ def test_contig_extension_into_repeat():
     """A unique path flanked by an unresolved repeat edge is extended
     by the longest spanning read (reference generateContigs behavior),
     and the absorbed repeat is not emitted as its own contig."""
-    from flye_tpu.contigger.extender import generate_contigs
-    from flye_tpu.repeat.graph import EdgeSequence, RepeatGraph
-    from flye_tpu.repeat.read_aligner import EdgeAlignment
-    from flye_tpu.overlap.structs import Overlap
+    from flye_jax.contigger.extender import generate_contigs
+    from flye_jax.repeat.graph import EdgeSequence, RepeatGraph
+    from flye_jax.repeat.read_aligner import EdgeAlignment
+    from flye_jax.overlap.structs import Overlap
 
     rng = np.random.default_rng(11)
     uniq = rng.integers(0, 4, 8000, dtype=np.uint8)

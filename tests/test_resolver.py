@@ -5,14 +5,14 @@ superbubble/roundabout masking (meta mode)."""
 
 import numpy as np
 
-from flye_tpu.config import Config
-from flye_tpu.io import SequenceStore
-from flye_tpu.overlap.structs import Overlap
-from flye_tpu.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
-from flye_tpu.repeat.haplotype import HaplotypeResolver
-from flye_tpu.repeat.processing import fix_chimeric_junctions
-from flye_tpu.repeat.read_aligner import EdgeAlignment
-from flye_tpu.repeat.resolver import RepeatResolver
+from flye_jax.config import Config
+from flye_jax.io import SequenceStore
+from flye_jax.overlap.structs import Overlap
+from flye_jax.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
+from flye_jax.repeat.haplotype import HaplotypeResolver
+from flye_jax.repeat.processing import fix_chimeric_junctions
+from flye_jax.repeat.read_aligner import EdgeAlignment
+from flye_jax.repeat.resolver import RepeatResolver
 
 
 class FakeInferer:
@@ -170,7 +170,7 @@ def test_separate_path_and_clear_resolved():
     res = RepeatResolver(g, reads, aligner, cfg, FakeInferer())
     res.find_repeats()
     assert r.repetitive
-    from flye_tpu.repeat.resolver import Connection
+    from flye_jax.repeat.resolver import Connection
     conn = Connection([u0, r, u1], 0, 100, 20000)
     res.resolve_connections([conn] * 6, 0.5)
     # middle edge resolved and a bridge spliced in

@@ -7,9 +7,9 @@ tests pin that behavior plus the signed bidirectional walk.
 
 import numpy as np
 
-from flye_tpu.contigger.extender import ContigInfo
-from flye_tpu.io.fasta import codes_to_str, str_to_codes
-from flye_tpu.pipeline.scaffolder import build_scaffolds, write_assembly
+from flye_jax.contigger.extender import ContigInfo
+from flye_jax.io.fasta import codes_to_str, str_to_codes
+from flye_jax.pipeline.scaffolder import build_scaffolds, write_assembly
 
 
 def _contig(num, seq):

@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from flye_tpu.index import KmerIndex
-from flye_tpu.index.sharded import ShardedKmerIndex
-from flye_tpu.io import SequenceStore
-from flye_tpu.overlap import OverlapEngine
-from flye_tpu.utils.simulate import random_genome, simulate_reads
+from flye_jax.index import KmerIndex
+from flye_jax.index.sharded import ShardedKmerIndex
+from flye_jax.io import SequenceStore
+from flye_jax.overlap import OverlapEngine
+from flye_jax.utils.simulate import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,7 @@ def test_mesh_build_matches_host_shard_build(stores):
     shard-partitioned index (same shards, same postings order)."""
     import jax
 
-    from flye_tpu.parallel import make_mesh
+    from flye_jax.parallel import make_mesh
 
     store = stores
     k, w = 15, 5

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flye_tpu.index.kmer_index import KmerIndex
-from flye_tpu.io.seqstore import SequenceStore
-from flye_tpu.ops.kmers import (canonical_kmers, minimizer_mask,
+from flye_jax.index.kmer_index import KmerIndex
+from flye_jax.io.seqstore import SequenceStore
+from flye_jax.ops.kmers import (canonical_kmers, minimizer_mask,
                                 sample_mask, splitmix64)
 
 

@@ -5,7 +5,7 @@ import threading
 
 import numpy as np
 
-from flye_tpu.parallel.taskbus import TaskBus
+from flye_jax.parallel.taskbus import TaskBus
 
 
 def _double(payload):
@@ -57,8 +57,8 @@ def test_claim_is_exclusive(tmp_path):
 def test_polish_task_handler_matches_direct(tmp_path):
     """The bus polish handler reproduces polish_bubbles on the same
     packed chunk (native CPU path both ways)."""
-    from flye_tpu.ops.polish import polish_bubbles
-    from flye_tpu.polishing.polisher import _polish_task
+    from flye_jax.ops.polish import polish_bubbles
+    from flye_jax.polishing.polisher import _polish_task
 
     rng = np.random.default_rng(11)
     B, C, Cb, R, S = 6, 20, 28, 5, 40

@@ -1,11 +1,11 @@
 import numpy as np
 
-from flye_tpu.io import SequenceStore
-from flye_tpu.overlap.structs import Overlap
-from flye_tpu.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
-from flye_tpu.repeat.read_aligner import EdgeAlignment
-from flye_tpu.trestle import resolve_unbridged_repeats
-from flye_tpu.trestle.trestle import get_simple_repeats
+from flye_jax.io import SequenceStore
+from flye_jax.overlap.structs import Overlap
+from flye_jax.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
+from flye_jax.repeat.read_aligner import EdgeAlignment
+from flye_jax.trestle import resolve_unbridged_repeats
+from flye_jax.trestle.trestle import get_simple_repeats
 
 
 class FakeAligner:

@@ -4,19 +4,19 @@ trestle_config.py:19-21) — including the must-not-bridge cases."""
 
 import numpy as np
 
-from flye_tpu.io import SequenceStore
-from flye_tpu.overlap.structs import Overlap
-from flye_tpu.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
-from flye_tpu.repeat.processing import UnbranchingPath
-from flye_tpu.repeat.read_aligner import EdgeAlignment
-from flye_tpu.trestle.divergence import (banded_ops,
+from flye_jax.io import SequenceStore
+from flye_jax.overlap.structs import Overlap
+from flye_jax.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
+from flye_jax.repeat.processing import UnbranchingPath
+from flye_jax.repeat.read_aligner import EdgeAlignment
+from flye_jax.trestle.divergence import (banded_ops,
                                          call_divergent_positions,
                                          classify_by_positions,
                                          consensus_signature,
                                          pileup_profile,
                                          position_signatures)
-from flye_tpu.trestle.trestle import SimpleRepeat, _position_partition
-from flye_tpu.utils.simulate import random_genome
+from flye_jax.trestle.trestle import SimpleRepeat, _position_partition
+from flye_jax.utils.simulate import random_genome
 
 L = 1500
 

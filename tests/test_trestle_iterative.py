@@ -4,12 +4,12 @@ distance to the growing per-side consensus."""
 
 import numpy as np
 
-from flye_tpu.io import SequenceStore
-from flye_tpu.overlap.structs import Overlap
-from flye_tpu.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
-from flye_tpu.repeat.processing import UnbranchingPath
-from flye_tpu.repeat.read_aligner import EdgeAlignment
-from flye_tpu.trestle.trestle import SimpleRepeat, _iterative_partition
+from flye_jax.io import SequenceStore
+from flye_jax.overlap.structs import Overlap
+from flye_jax.repeat.graph import EdgeSequence, GraphEdge, RepeatGraph
+from flye_jax.repeat.processing import UnbranchingPath
+from flye_jax.repeat.read_aligner import EdgeAlignment
+from flye_jax.trestle.trestle import SimpleRepeat, _iterative_partition
 import pytest
 
 # full E2E runs: excluded from the fast unit gate (run with -m slow)
